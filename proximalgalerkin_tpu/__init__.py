@@ -1,12 +1,13 @@
-"""proximalgalerkin_tpu — a TPU-native Latent Variable Proximal Point (LVPP)
-finite-element framework in JAX.
+"""proximalgalerkin_tpu — an accelerator-native Latent Variable Proximal
+Point (LVPP) finite-element framework in JAX.
 
 A from-scratch, self-contained rebuild of the capabilities of
 METHODS-Group/ProximalGalerkin (the companion code of the LVPP paper), designed
-TPU-first: unstructured-mesh FEM assembly runs as batched einsum/Pallas
+accelerator-first: unstructured-mesh FEM assembly runs as batched einsum
 contractions over SoA cell arrays, Jacobians act matrix-free inside jitted
 Krylov solvers, and distribution is SPMD sharding over a `jax.sharding.Mesh`
-with ICI collectives — replacing the reference's DOLFINx/PETSc/MUMPS/MPI stack.
+with device collectives — replacing the reference's
+DOLFINx/PETSc/MUMPS/MPI stack.
 
 Package layout (see SURVEY.md §7):
   core/        dtypes, options, converged reasons, logging

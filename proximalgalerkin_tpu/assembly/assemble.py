@@ -1,6 +1,6 @@
 """Volume-form assembly as batched tensor contractions.
 
-This is the TPU-native replacement for the reference's UFL -> FFCx -> C
+This is the device-native replacement for the reference's UFL -> FFCx -> C
 kernel -> PETSc assembly pipeline (SURVEY.md layer 4; exercised from
 src/lvpp/problem.py:54-77). Design:
 
@@ -8,8 +8,8 @@ src/lvpp/problem.py:54-77). Design:
     quadrature points — `jax.jvp`/`jax.jacfwd` of that function replaces
     `ufl.derivative` (symbolic Gateaux derivative) exactly.
   * Field evaluation, physics, and test-function contraction are batched
-    einsums over (cells, quadrature points): they map onto the MXU/VPU and
-    XLA fuses the elementwise physics into the contractions.
+    einsums over (cells, quadrature points): they run as dense device
+    contractions and XLA fuses the elementwise physics into them.
   * The Jacobian never needs to be materialized: its action is the jvp of
     the assembled residual (cost ≈ 2 residuals), feeding matrix-free Krylov.
     Explicit element matrices / ELL / scipy CSR are available for the
@@ -329,10 +329,11 @@ class VolumeForm:
 
     # Cell-block sizes for chunked assembly (lax.map over blocks): the
     # batched einsums materialize (cells, nq, ...)-shaped intermediates
-    # that exceed the v5e's 16G HBM on large meshes — observed 27.7G for
-    # the jacfwd element matrices and >16G for the plain residual at the
-    # 80^2 x qdeg-10 gradient-constraint mesh. Chunking bounds the
-    # working set at identical results (tests/test_assembly.py).
+    # of tens of GB on large meshes — 27.7 GB for the jacfwd element
+    # matrices at the 80^2 x qdeg-10 gradient-constraint mesh. Chunking
+    # bounds the working set at identical results (tests/test_assembly.py).
+    # The sizes were chosen for a 16 GB device and are not yet retuned
+    # for an 80 GB one.
     ELEMENT_MATRIX_CHUNK = 2048
     RESIDUAL_CHUNK = 16384
 

@@ -4,7 +4,7 @@ The rebuild of DOLFINx's exterior-facet integrals (`ds` measures), needed
 by the Signorini contact terms (signorini_dolfinx.py:244-249, latent
 coupling on the contact boundary) and boundary observables. Facets are
 grouped by their local index within the owning cell (a static, small set),
-each group assembling as one batched einsum — same TPU-friendly structure
+each group assembling as one batched einsum — same batched structure
 as the volume path.
 
 Geometry: quadrature points on the reference facet are mapped into the

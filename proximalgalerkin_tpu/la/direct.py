@@ -2,7 +2,7 @@
 
 The escape hatch standing in for MUMPS (`pc_factor_mat_solver_type: mumps`
 in every reference example, e.g. obstacle_pg.py:131): exact LU on host for
-small/medium systems and for verifying the device Krylov path. The TPU fast
+small/medium systems and for verifying the device Krylov path. The device fast
 path is matrix-free Krylov in la/krylov.py.
 
 Column ordering: MMD on A^T+A — LVPP Jacobians have symmetric sparsity,

@@ -1,8 +1,8 @@
 """Device-resident ELL sparse matrices.
 
-The TPU-native replacement for PETSc's assembled AIJ matrices: fixed-width
+The device-native replacement for PETSc's assembled AIJ matrices: fixed-width
 padded rows (ELLPACK) so SpMV is a dense gather + multiply + row-reduce —
-regular, vectorizable, and memory-bound at speed-of-light on the VPU. Used
+regular, vectorizable, and memory-bound on the device. Used
 as the Krylov operator inside Newton: the Jacobian is assembled once per
 Newton step (scatter-add of element matrices through a precomputed slot
 map), then each Krylov iteration costs one gather-SpMV instead of a full

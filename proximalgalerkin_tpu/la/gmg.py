@@ -5,9 +5,9 @@ Preconditions the P1 fast path's SPD Schur system
 on an (m, m) vertex grid (rectangle_mesh numbering is lexicographic, so
 the flat dof vector reshapes to the grid): damped-Jacobi smoothing,
 full-weighting restriction, bilinear prolongation, rediscretized coarse
-operators. Every operation is a pad/slice stencil — no gathers, TPU
-speed-of-light — and the whole cycle is pure jnp, usable inside the fused
-Newton kernel.
+operators. Every operation is a pad/slice stencil — no gathers, only
+contiguous streaming — and the whole cycle is pure jnp, usable inside the
+fused Newton kernel.
 
 The P1 stiffness stencil on a uniform right-diagonal triangulation is
 h-independent in 2D: A = [[0,-1,-1],[-1,4,-1],[-1,-1,0]] (diagonal

@@ -147,14 +147,14 @@ def gmres_givens(A: Callable, b, x0=None, *, tol=1e-10, atol=0.0,
     """Restarted GMRES(m) with CGS2 Arnoldi (classical Gram-Schmidt with
     one full reorthogonalization pass — Giraud et al., the numerically
     robust batched alternative to sequential MGS that keeps the
-    projection a single big matvec on TPU) and Givens rotations,
+    projection a single big matvec) and Givens rotations,
     right-preconditioned by an inverse-diagonal vector.
 
     Built from matvecs, masked dots, and scalar rotations only — no
     Hessenberg least-squares solve_triangular on big systems and no
-    host callbacks, so it runs on the TPU's emulated-f64 path where
-    jax.scipy's batched GMRES has faulted. The nonsymmetric-Jacobian
-    stand-in for MUMPS (thermoforming QVI, multiphase)."""
+    host callbacks, so the whole solve stays one device program. The
+    nonsymmetric-Jacobian stand-in for MUMPS (thermoforming QVI,
+    multiphase)."""
     n = b.shape[0]
     dtype = b.dtype
     m = restart

@@ -1,6 +1,6 @@
 """Schur-complement block preconditioning for 2x2 saddle systems.
 
-TPU-native rebuild of the reference's only non-LU linear-solver recipe —
+Device-native rebuild of the reference's only non-LU linear-solver recipe —
 the MFEM eikonal solver's MINRES + BlockDiagonalPreconditioner
 (examples/09_eikonal/ex40.cpp:261-281):
 
@@ -9,9 +9,9 @@ the MFEM eikonal solver's MINRES + BlockDiagonalPreconditioner
     P = blockdiag( diag(A00)^{-1},  approx-solve(S) )
 
 The reference approximates the S-solve with a Gauss-Seidel sweep (or
-UMFPACK LU). Both are host-sequential; the TPU-native stand-in is a fixed
+UMFPACK LU). Both are host-sequential; the device stand-in is a fixed
 Chebyshev polynomial in diag(S)^{-1} S — same smoothing role, but built
-from SpMVs that vectorize on the VPU, and a *fixed linear SPD* operator,
+from SpMVs that vectorize on the device, and a *fixed linear SPD* operator,
 which is what MINRES requires of its preconditioner.
 
 Blocks are identified by a component mask m0 over the global dof vector

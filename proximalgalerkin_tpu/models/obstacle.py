@@ -1,6 +1,6 @@
 """Example 01 — the obstacle problem via proximal Galerkin (LVPP).
 
-TPU-native rebuild of examples/01_obstacle_problem/obstacle_pg.py: mixed
+Device-native rebuild of examples/01_obstacle_problem/obstacle_pg.py: mixed
 (u, psi) Lagrange spaces of equal order, pointwise bound u >= phi enforced by
 the exp latent map, alpha schedules constant/double_exponential/geometric,
 and the full observable set (energy, complementarity, primal/dual

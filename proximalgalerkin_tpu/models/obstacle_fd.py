@@ -6,11 +6,11 @@ same residual/Jacobian structure ([alpha*A u + psi - alpha*f - psi_k;
 u - exp(psi) - phi]), same alpha rule min(max(C r^(q^k) - alpha, C), 1e2),
 same tolerances (inner relative 1e-4, outer l2 1e-9).
 
-TPU-native design instead of the Julia sparse-direct solve: the latent
+Device-native design instead of the Julia sparse-direct solve: the latent
 block is pointwise diagonal in FD, so each Newton step reduces exactly to
 the SPD Schur system (alpha*A + D^{-1}) du = rhs, solved by CG with a
 stencil matvec — all fused into one jitted Newton kernel of rolls/adds on
-an (N, N) grid (VPU-only, no gathers, no sparse storage at all).
+an (N, N) grid (elementwise only, no gathers, no sparse storage at all).
 """
 
 from __future__ import annotations
@@ -131,8 +131,7 @@ def fd_obstacle_solve(N: int, max_outer: int = 100, newton_tol: float = 1e-4,
 
             # Symmetric Jacobi scaling of the Schur CG: rows of
             # S = alpha*A + D^{-1} span ~1e16 in deep contact, and the
-            # TPU's emulated f64 overflows (~1e38 intermediates) on the
-            # squared terms CG forms from them — solve
+            # squared terms CG forms from them reach ~1e38 — solve
             # D_S^{-1/2} S D_S^{-1/2} y = D_S^{-1/2} rhs instead, which
             # keeps every product O(1)-scaled and doubles as a Jacobi
             # preconditioner.

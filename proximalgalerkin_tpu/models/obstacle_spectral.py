@@ -4,10 +4,10 @@ with a Zernike polynomial basis.
 Rebuild of examples/01_obstacle_problem/obstacle_spectral.jl: the latent
 nonlinearity is applied in physical (quadrature-grid) space and projected
 back through dense transforms (:49-63), with a polynomial-degree sweep
-(:88-144). TPU-first design: instead of the Julia package's sparse Zernike
+(:88-144). Device-first design: instead of the Julia package's sparse Zernike
 operator calculus + LU-preconditioned GMRES, the Galerkin operators
 (stiffness, mass, basis-to-grid Vandermonde) are DENSE matrices built once
-by quadrature — every hot step is a dense matmul/solve on the MXU.
+by quadrature — every hot step is a dense matmul/solve on the device.
 
 Basis: Zernike functions Z_n^m(r, th) = R_n^m(r) {cos, sin}(m th) with
 radial Jacobi-polynomial formula; the primal space is Dirichlet-weighted
@@ -124,12 +124,11 @@ def spectral_obstacle_solve(p: int, obstacle=spherical_cap_obstacle,
     count, u coefficient vector, evaluator).
 
     solve_dtype: 'f64' factors the dense Newton matrix in float64 (host
-    and CPU-record parity); 'f32_refine' factors in float32 on the MXU
-    and recovers f64 direction accuracy with three refinement passes
-    against the f64 operator — the device path for the p-sweep
-    (obstacle_spectral.jl:88-144), where emulated-f64 LU dominates
-    (VERDICT r3 #7). Directions agree to ~1e-12 so Newton counts match
-    the f64 trajectory."""
+    and CPU-record parity); 'f32_refine' factors in float32 on the
+    device and recovers f64 direction accuracy with three refinement
+    passes against the f64 operator — the device path for the p-sweep
+    (obstacle_spectral.jl:88-144). Directions agree to ~1e-12 so Newton
+    counts match the f64 trajectory."""
     import time as _time
     _t0 = _time.time()
     r, th, wq = _disk_quadrature(p)
@@ -141,7 +140,7 @@ def spectral_obstacle_solve(p: int, obstacle=spherical_cap_obstacle,
     y = r * np.sin(th)
     phi = obstacle(np.stack([x, y]))
 
-    # dense Galerkin operators (MXU matmuls)
+    # dense Galerkin operators (device matmuls)
     _t0 = _time.time()
     A = (Gxu * wq[:, None]).T @ Gxu + (Gyu * wq[:, None]).T @ Gyu
     Mup = (Vu * wq[:, None]).T @ Vp         # <Z_u, Z_psi>
@@ -171,7 +170,7 @@ def spectral_obstacle_solve(p: int, obstacle=spherical_cap_obstacle,
             return jnp.concatenate([Fu, Fp])
 
         def jac(cp):
-            """Closed-form block Jacobian — one weighted MXU matmul for
+            """Closed-form block Jacobian — one weighted matmul for
             the only state-dependent block, replacing the (nu+npsi)-pass
             jacfwd that dominated the CPU p=48 record:
               [alpha A, Mup; Vp^T diag(wq) Vu, -Vp^T diag(wq e^psi) Vp]."""

@@ -76,6 +76,22 @@ def available() -> bool:
     return _load() is not None
 
 
+def rebuild() -> bool:
+    """Build the helper from pattern.cpp on this machine, whatever .so a
+    copied tree brought along (the staleness test in _load only compares
+    modification times), then load it. Call before anything has loaded
+    the library in this process. -> available()."""
+    global _lib, _failed
+    _lib, _failed = None, False
+    _SO.unlink(missing_ok=True)
+    try:
+        subprocess.run(["make", "-B", "-C", str(_DIR)],
+                       capture_output=True, timeout=120, check=True)
+    except Exception:
+        _failed = True
+    return available()
+
+
 def _p64(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 

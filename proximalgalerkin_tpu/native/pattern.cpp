@@ -1,6 +1,6 @@
 // Native host-side setup kernels (C++), loaded via ctypes.
 //
-// The runtime around the TPU compute path: sparsity-pattern construction
+// The runtime around the device compute path: sparsity-pattern construction
 // and scatter-add assembly are the host-setup hot spots at 1M+ DoF
 // (np.unique sorts and np.add.at scatters are single-threaded Python/numpy
 // paths an order of magnitude slower). These replace the load-bearing

@@ -1,3 +1,1 @@
-from .pallas_spmv import dia_spmv_pallas
-
-__all__ = ["dia_spmv_pallas"]
+"""Lattice multigrid operators (ops/mg.py) for the P1 obstacle fast path."""

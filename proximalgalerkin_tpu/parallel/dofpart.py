@@ -1,6 +1,6 @@
 """Dof-partitioned distributed FEM: owned/ghost dofs + ppermute halo rings.
 
-The TPU-native rebuild of the reference's actual scaling mechanism — MPI
+The device-native rebuild of the reference's actual scaling mechanism — MPI
 domain decomposition with PETSc ghost vectors (src/lvpp/problem.py:56-66:
 ghostUpdate INSERT/FORWARD before assembly, ADD/REVERSE after; partitioner
 at examples/09_eikonal/read_mobius_dolfinx.py:72-74). Unlike the GSPMD
@@ -47,7 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh as DeviceMesh
 from jax.sharding import NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 # ----------------------------------------------------------- host-side setup
@@ -542,7 +542,7 @@ class DistributedProblem:
         whose wdet is zero) get identity rows; bc dofs get symmetric
         identity treatment, matching _local_jac_action. Dense is the
         point: the subdomain factor/solve is one LAPACK/XLA call per
-        device, the TPU-native analogue of PETSc asm+lu subdomain MUMPS.
+        device, the device-native analogue of PETSc asm+lu subdomain MUMPS.
 
         SCALING LIMIT (VERDICT r4): the dense matrix is
         O(ext_total^2) = O(((N/nd)(2k+1))^2) memory per device — fine at
@@ -914,7 +914,7 @@ class DistributedProblem:
                 in_specs=(P(self.axis), P(self.axis), P(self.axis), P(),
                           P(self.axis), P(self.axis), P(self.axis),
                           P(self.axis)),
-                out_specs=P(self.axis), check_rep=False))
+                out_specs=P(self.axis), check_vma=False))
         return self._jits["residual"](
             x_shard, dict(coeffs or {}), dict(facet_coeffs or {}),
             dict(consts or self.consts), self.data_loc,
@@ -938,7 +938,7 @@ class DistributedProblem:
                 in_specs=(P(self.axis), P(self.axis), P(self.axis),
                           P(self.axis), P(), P(self.axis), P(self.axis),
                           P(self.axis), P(self.axis)),
-                out_specs=P(self.axis), check_rep=False))
+                out_specs=P(self.axis), check_vma=False))
         return self._jits["jac"](
             x_shard, v_shard, dict(coeffs or {}), dict(facet_coeffs or {}),
             dict(consts or self.consts), self.data_loc,
@@ -969,7 +969,7 @@ class DistributedProblem:
             self._jits[key] = jax.jit(shard_map(
                 kern, mesh=self.dmesh,
                 in_specs=(P(self.axis), P(self.axis), P(), P(self.axis)),
-                out_specs=P(), check_rep=False))
+                out_specs=P(), check_vma=False))
         jitted = self._jits[key]
 
         def functional(x_shard, coeffs=None, consts=None):
@@ -1051,7 +1051,7 @@ class DistributedProblem:
             in_specs=(P(self.axis), P(self.axis), P(self.axis), P(),
                       P(self.axis), P(self.axis), P(self.axis),
                       P(self.axis), P(), P(), P(), P(), P()),
-            out_specs=(P(self.axis), P(), P(), P()), check_rep=False))
+            out_specs=(P(self.axis), P(), P(), P()), check_vma=False))
 
         self._jits[key] = jitted
         return self._bind_newton(jitted, rtol, atol, ksp_rtol, ksp_atol,
@@ -1402,7 +1402,7 @@ class DistributedProblem:
                           P(self.axis), P(self.axis), P(), P(), P(), P(),
                           P()),
                 out_specs=(P(self.axis), P(), P(), P(), P()),
-                check_rep=False))
+                check_vma=False))
             self._jits[key] = jitted
 
         def fn(x_shard, coeffs=None, consts=None, facet_coeffs=None,

@@ -4,10 +4,10 @@ The second (performance-tuned) distribution mode alongside the GSPMD
 global-view sharding of parallel/sharding.py: domain rows are partitioned
 across a 1D device mesh, each device holds its strip plus one halo row per
 neighbor, and `jax.lax.ppermute` rings exchange the halos before each
-stencil application — the literal TPU translation of the reference's
+stencil application — the literal device translation of the reference's
 `Vec.ghostUpdate(INSERT/FORWARD)` neighbor exchange + `comm.allreduce`
 norms (src/lvpp/problem.py:56-66, SURVEY.md §2.3), with the collectives
-riding ICI instead of MPI.
+riding device interconnect instead of MPI.
 
 Implemented here for the structured-grid (stencil) LVPP obstacle solver;
 global reductions inside CG use jax.lax.psum exactly where the reference
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..models.obstacle import spherical_cap_obstacle
 
@@ -95,7 +95,7 @@ def fd_obstacle_solve_sharded(
 
     @partial(shard_map, mesh=mesh, in_specs=(P("dev", None),) * 5
              + (P(),), out_specs=(P("dev", None), P("dev", None), P()),
-             check_rep=False)
+             check_vma=False)
     def newton_kernel(u, psi, psi_k, interior_f, phi, alpha):
         """One fused Newton solve on the row-sharded grid; each array is
         the device-local strip (rows/nd, N)."""
@@ -159,7 +159,7 @@ def fd_obstacle_solve_sharded(
                             - alpha * lap(du_a), 0.0)
 
             # symmetric Jacobi scaling (see models/obstacle_fd.py): keeps
-            # the emulated-f64 TPU path inside its dynamic range
+            # CG's squared terms inside the dynamic range
             sD = jnp.where(free,
                            jnp.sqrt(alpha * 4.0 * h2inv + 1.0 / dsafe), 1.0)
 

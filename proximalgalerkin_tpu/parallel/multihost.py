@@ -1,18 +1,18 @@
-"""Multi-host (DCN) initialization — the `jax.distributed` wiring.
+"""Multi-host initialization — the `jax.distributed` wiring.
 
 SURVEY.md §2.3: the reference scales across nodes with OpenMPI
 (`mpirun`-launched ranks, PETSc ghost vectors over the interconnect); the
-TPU-native equivalent is one JAX process per host, connected through
+device-native equivalent is one JAX process per host, connected through
 `jax.distributed.initialize`, after which `jax.devices()` spans every
 host's chips and the same `shard_map`/`psum`/`ppermute` code of
 parallel/dofpart.py runs unchanged with XLA routing intra-host collectives
-over ICI and inter-host ones over DCN.
+over the device interconnect (NVLink) and inter-host ones over the network.
 
 Like the reference's MPI paths (never exercised by its CI, SURVEY §4), the
 multi-host bring-up cannot run on single-host CI hardware — but unlike the
 reference we smoke-test it: tests/test_multihost.py launches two real OS
 processes with one CPU device each, initializes the distributed runtime,
-and psums across them (the CPU stand-in for two TPU hosts on DCN).
+and psums across them (the CPU stand-in for two accelerator hosts).
 """
 
 from __future__ import annotations
@@ -27,9 +27,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    local_device_ids=None) -> tuple:
-    """Initialize the cross-host runtime. On TPU pods the three arguments
-    are auto-detected from the TPU metadata (call with no arguments); on
-    CPU/GPU clusters pass them explicitly or via the standard environment
+    """Initialize the cross-host runtime. Where a cluster manager
+    describes the job the three arguments are auto-detected (call with no
+    arguments); otherwise pass them explicitly or via the standard environment
     (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID —
     mirroring how mpirun feeds OMPI_COMM_WORLD_RANK to the reference).
 

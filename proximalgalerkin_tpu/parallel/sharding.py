@@ -1,12 +1,12 @@
 """SPMD domain decomposition over a JAX device mesh.
 
-The TPU-native replacement for the reference's one parallelism strategy —
+The device-native replacement for the reference's one parallelism strategy —
 MPI mesh partitioning with PETSc ghost vectors (SURVEY.md §2.3;
 src/lvpp/problem.py:56-66): cells are block-partitioned across devices of a
 1D `jax.sharding.Mesh`; per-cell assembly arrays (quadrature geometry,
 gather indices, quadrature-point coefficients) carry a NamedSharding along
 the cell axis, the dof vector is replicated, and XLA inserts the
-ICI collectives (all-reduce of the scatter-add, replicated reductions) that
+device collectives (all-reduce of the scatter-add, replicated reductions) that
 ghostUpdate(ADD/REVERSE) + comm.allreduce perform explicitly under MPI.
 
 Structured generators emit cells in block order, so a contiguous block

@@ -1,6 +1,6 @@
 """Trace spaces: fields living only on a set of boundary facets.
 
-The TPU-native replacement for the reference's boundary-submesh latent
+The device-native replacement for the reference's boundary-submesh latent
 space (`create_submesh` + `ufl.MixedFunctionSpace` across meshes with
 entity_maps, signorini_dolfinx.py:207-225): instead of building a separate
 codim-1 mesh, the trace field's dofs are the facet-closure dofs of a

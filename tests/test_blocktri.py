@@ -139,7 +139,7 @@ def test_lagged_f64_f32apply_matches_lu():
 
 def test_cyclic_reduction_matches_dense():
     """bt_factor_cr/bt_apply_cr (log-depth batched cyclic reduction, the
-    MXU-shaped alternative to the sequential block-Thomas scan) solves
+    batched alternative to the sequential block-Thomas scan) solves
     random quasi-definite block-tridiagonal systems to the same accuracy
     as Thomas and the dense solve — including non-power-of-two block
     counts (identity padding)."""
@@ -235,13 +235,40 @@ def test_unstructured_disk_btlu_matches_lu():
     assert diff < 1e-8
 
 
+def test_unstructured_disk_btlu_deep_contact_matches_lu():
+    """The W1 protocol (alpha capped at 1e4, tolerance 1e-8, lagged f64
+    btlu at ksp_rtol 1e-12) at a coarser disk: deep into contact the
+    latent diagonal exp(psi) underflows, and |diag|-based equilibration
+    made the f64 factor useless from alpha ~85 on (NaN directions).
+    Row-norm equilibration must reproduce the exact host-LU trajectory."""
+    from proximalgalerkin_tpu.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_tpu.models.obstacle import solve_obstacle_problem
+    mesh = create_disk_mesh(res=0.03)
+    common = dict(polynomial_order=1, tol_exit=1e-8, alpha_max=1e4,
+                  verbose=False, maximum_number_of_outer_loop_iterations=60)
+    prob, r_lu = solve_obstacle_problem(
+        mesh, solver_options={"ksp_type": "preonly", "pc_type": "lu"},
+        **common)
+    _, r_bt = solve_obstacle_problem(
+        mesh, solver_options={"ksp_type": "preonly", "pc_type": "btlu",
+                              "ksp_rtol": 1e-12, "pc_factor_dtype": "f64",
+                              "pc_factor_lag": 1},
+        **common)
+    assert r_bt.converged and r_lu.converged
+    assert list(r_bt.newton_steps) == list(r_lu.newton_steps)
+    # u only: in the contact set psi runs to ~-5e5, where exp(psi) = 0
+    # and psi is fixed only to the refinement tolerance
+    us = prob.space.slice_of("u")
+    u_lu, u_bt = np.asarray(r_lu.x)[us], np.asarray(r_bt.x)[us]
+    assert np.linalg.norm(u_bt - u_lu) < 1e-8 * np.linalg.norm(u_lu)
+
+
 def test_block_inv_schur_cross_scale():
-    """_block_inv_schur must invert the deep-contact block structure the
-    f32+Newton-Schulz scheme cannot: unit diagonal with cross-scale
-    off-diagonal coupling (equilibrated LVPP saddle at deep contact,
-    entries ~1e8, cond ~1e16). Verified against the exact inverse
-    residual ||M X - I||."""
-    from proximalgalerkin_tpu.la.blocktri import _block_inv_schur
+    """_block_inv (partially pivoted LU, f64) must invert the deep-contact
+    block structure: unit diagonal with cross-scale off-diagonal coupling
+    (equilibrated LVPP saddle at deep contact, entries ~1e8, cond ~1e16).
+    Verified against the exact inverse residual ||M X - I||."""
+    from proximalgalerkin_tpu.la.blocktri import _block_inv
     import jax.numpy as jnp
     rng = np.random.default_rng(3)
     n = 96
@@ -253,7 +280,7 @@ def test_block_inv_schur_cross_scale():
     Q2 = rng.standard_normal((k, k))
     D = Q2 @ Q2.T / k + np.eye(k)
     M = np.block([[A, B], [B.T, -D]])
-    X = np.asarray(_block_inv_schur(jnp.asarray(M), leaf=32))
+    X = np.asarray(_block_inv(jnp.asarray(M)))
     R = M @ X - np.eye(n)
     assert np.isfinite(X).all()
     # row-scaled (backward-error-like) residual: rows of M scale ~1e8,
@@ -262,7 +289,3 @@ def test_block_inv_schur_cross_scale():
     rs = np.abs(M).sum(axis=1)
     scaled = float((np.abs(R) / rs[:, None]).max())
     assert scaled < 1e-9, scaled
-    # (the f32+NS failure this strategy fixes is only reproduced by the
-    # REAL deep-contact factors — measured NaN at alpha 16 on the
-    # 101k-dof unstructured record, records/rec_obstacle_unstructured* —
-    # synthetic cross-scale blocks stay componentwise-benign)

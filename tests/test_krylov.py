@@ -1,4 +1,4 @@
-"""Krylov layer tests: the TPU-robust Givens/MGS GMRES and the
+"""Krylov layer tests: the Givens/MGS GMRES and the
 equilibrated (two-sided Jacobi-scaled) direction solves that stand in for
 MUMPS on nonsymmetric LVPP Jacobians (thermoforming QVI)."""
 

@@ -1,12 +1,13 @@
 """Two-process multi-host smoke test (SURVEY §2.3 / VERDICT r2 item 6).
 
 The reference's MPI paths are 'correct by construction, never tested in
-CI' (SURVEY §4); here the DCN analogue IS tested: two real OS processes,
+CI' (SURVEY §4); here the multi-host analogue IS tested: two real OS
+processes,
 each with two CPU devices, join through jax.distributed.initialize and
 psum a global sharded array — the minimal proof that the multihost wiring
 (coordinator handshake, cross-process device mesh, cross-process
-collectives) works. TPU-pod runs use the same init_multihost() with
-auto-detected arguments.
+collectives) works. Multi-host accelerator runs use the same
+init_multihost().
 """
 
 import os
@@ -27,7 +28,7 @@ _WORKER = textwrap.dedent("""
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     pid, n, devs = init_multihost()
     assert n == 2, n
@@ -103,7 +104,7 @@ _LVPP_WORKER = textwrap.dedent("""
 @pytest.mark.skipif(os.environ.get("PGTPU_SKIP_MULTIHOST") == "1",
                     reason="explicitly disabled")
 def test_two_process_lvpp_obstacle(tmp_path):
-    """A REAL distributed LVPP solve over the DCN wiring (VERDICT r4
+    """A REAL distributed LVPP solve over the multi-host wiring (VERDICT r4
     next-round #6, upgrading the psum smoke): two OS processes x two CPU
     devices run the obstacle problem through DistributedLvppProblem on a
     4-device cross-process mesh; Newton counts and the solution norm must

@@ -165,7 +165,7 @@ def test_ew_forcing_matches_fixed_solution():
     """cg_forcing="ew" (inexact-Newton inner tolerances) must converge to
     the same solution as the default fixed-tolerance scheme. Kept as an
     option only: measured at 64^2/128^2, the CG savings are outweighed by
-    outer-iteration inflation (see RESULTS.md round-3 notes)."""
+    outer-iteration inflation."""
     import numpy as np
     from proximalgalerkin_tpu.mesh import rectangle_mesh
     from proximalgalerkin_tpu.models.obstacle_p1 import P1ObstacleSolver

@@ -15,7 +15,7 @@ def test_sweep_converges():
 
 
 def test_f32_refine_matches_f64_counts():
-    # the device p-sweep path (MXU f32 LU + 3 f64 refinement passes,
+    # the device p-sweep path (f32 LU + 3 f64 refinement passes,
     # VERDICT r3 #7) must walk the same Newton trajectory as the f64
     # factorization — directions agree to ~1e-12 after refinement
     r64 = spectral_p_sweep(ps=(8, 12), verbose=False)
